@@ -1,4 +1,4 @@
-"""krylov_crn_tpu — a TPU-native sparse second-order optimization framework.
+"""krylov_crn_tpu — a sparse second-order optimization framework for the GPU.
 
 A from-scratch JAX/XLA/Pallas implementation of cubic-regularized Newton
 methods for sparse generalized linear models, with the capabilities of the
@@ -18,12 +18,12 @@ arXiv:2401.03058):
                  distribution (psum-reduced HVPs, replicated iterates).
 * ``utils``    — Trace (metric logging / plotting / pickling), profiling.
 
-Design rules that shape everything here (measured on TPU v5e):
+Design rules that shape everything here:
 
 1. Sparse index/value arrays are always **jit arguments** (pytree leaves),
    never closure constants — XLA constant-embedding of large gather/scatter
-   index arrays falls off a performance cliff (~800x) and can take minutes
-   to compile.
+   index arrays falls off a performance cliff and can take minutes to
+   compile.
 2. Both A (row-sorted COO/CSR) and its explicit transpose are stored so each
    direction of the matvec is a gather + sorted segment-sum — no scatters.
 3. Hot-loop control flow (line search, secular Newton, Lanczos, CG) is
@@ -39,10 +39,10 @@ from krylov_crn_tpu.config import (  # noqa: F401
     pin_fp32_matmul_precision,
 )
 
-# fp32 algebra must be fp32: without this, TPU lowers fp32 mat-mat products
-# to 1-pass bf16 (~2.4e-3 error — measured; see config.py docstring), which
-# silently destroys the solver's 1e-8 gap targets. Applied at import so no
-# entry point (CLI, bench, tests, user code) can miss it.
+# fp32 algebra must be fp32: without this, XLA:GPU may run fp32 matrix
+# products in TF32 (~1e-3 error; see config.py docstring), which silently
+# destroys the solver's 1e-8 gap targets. Applied at import so no entry
+# point (CLI, bench, tests, user code) can miss it.
 pin_fp32_matmul_precision()
 from krylov_crn_tpu.data.formats import SparseMatrix, DualSparse  # noqa: F401
 from krylov_crn_tpu.models.logistic import LogisticRegression  # noqa: F401

@@ -1,6 +1,6 @@
-"""Experiment driver: the reference's cubic_newton.py re-built on the TPU
+"""Experiment driver: the reference's cubic_newton.py re-built on this
 framework (flags, run grid, empirical-f* protocol and figures all mirror
-/root/reference/cubic_newton.py:14-161).
+the reference's cubic_newton.py:14-161).
 
 Usage:
     python -m krylov_crn_tpu.cli --dataset w8a --it_max 100
@@ -33,7 +33,7 @@ def build_parser():
                    help="max time")
     p.add_argument("--SSCN_dim", nargs="+", default=10, type=int,
                    metavar="D", help="Subspace dimensions of SSCN")
-    # TPU-build additions
+    # additions over the reference CLI
     p.add_argument("--synthetic", action="store_true",
                    help="use a synthetic stand-in shaped like the dataset")
     p.add_argument("--krylov_dim", default=10, type=int,
@@ -59,7 +59,7 @@ def build_parser():
                         "1e-9 grid tolerances (--no-fused to compare)")
     p.add_argument("--solver", default="auto",
                    choices=["auto", "gram", "coo"],
-                   help="compute path: gram = dense-K MXU formulation "
+                   help="compute path: gram = dense-K formulation "
                         "(n <= ~45k), coo = sparse gather path, auto = "
                         "pick per problem shape")
     p.add_argument("--out-dir", default="figs")
@@ -98,8 +98,19 @@ def load_dataset(args):
     return load_libsvm(name, allow_download=args.allow_download)
 
 
+def _require_plotting():
+    """The figures need matplotlib (seaborn optional): fail before any
+    work instead of after every solver has run."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        raise SystemExit("krylov_crn_tpu.cli draws its figures with "
+                         "matplotlib, which is not installed") from None
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    _require_plotting()
 
     m_list = args.SSCN_dim
     if isinstance(m_list, int):

@@ -6,17 +6,16 @@ length with zero-valued entries that target (row 0, col 0). A matvec is then
 
     y = segment_sum(vals * x[cols], rows, num_segments=n, indices_are_sorted)
 
-— one gather plus one sorted segment-sum. On parts with gather/scatter
-engines (SparseCore) this runs at memory speed; the attached v5e executes
-both on the scalar unit (~0.14 G elem/s measured, PERF.md), which is why
-the dense Gram path (ops/gram.py) is the performant single-chip route and
-this format serves as the general/row-sharded fallback. The transpose
+— one gather plus one sorted segment-sum. Gathers move far fewer bytes
+per cycle than dense streaming, which is why the dense Gram path
+(ops/gram.py) is the fast single-device route and this format serves as
+the general/row-sharded fallback. The transpose
 product uses an explicitly stored transpose (memory x2, as anticipated in
 SURVEY.md "hard parts" (b)): no scatter ever runs.
 
 Replaces the reference's ``scipy.sparse`` CSR/CSC usage
-(/root/reference/optimizer/loss.py:266-302, cubic_newton.py:52-55) with a
-TPU-first layout. All leaves are jit-argument pytree fields — never bake
+(the reference's optimizer/loss.py:266-302, cubic_newton.py:52-55) with a
+device layout. All leaves are jit-argument pytree fields — never bake
 these arrays into a jaxpr as constants (see package docstring, rule 1).
 """
 
@@ -71,8 +70,8 @@ class DualSparse:
     ``at_indptr``/``col_counts`` index the transpose's row segments (i.e. the
     columns of A) for SSCN's coordinate-subspace window gathers; see
     ops/coords.py. ``dense`` is populated for small-d problems where dense
-    MXU matmuls beat gather-based SpMV (the reference's analogous switch is
-    dense-vs-sparse linear solves at /root/reference/optimizer/cubic.py:47-58).
+    matmuls beat gather-based SpMV (the reference's analogous switch is
+    dense-vs-sparse linear solves at its optimizer/cubic.py:47-58).
     """
 
     a: SparseMatrix  # (n, d)

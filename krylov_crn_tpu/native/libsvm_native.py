@@ -1,8 +1,8 @@
 """ctypes binding for the native LIBSVM parser (builds on demand).
 
 The shared object is compiled lazily with the system C compiler the first
-time it's needed; the pure-Python parser in data/libsvm.py remains the
-fallback when no toolchain is available.
+time it's needed (it is not tracked in git); the pure-Python parser in
+data/libsvm.py remains the fallback when no toolchain is available.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -23,9 +24,19 @@ _lib = None
 
 
 def _build() -> None:
+    """Compile to a private temporary file, then rename it into place:
+    concurrent builders (test workers, processes of one checkout) each
+    produce a whole library and the last rename wins atomically."""
     cc = os.environ.get("CC", "cc")
-    cmd = [cc, "-O3", "-shared", "-fPIC", "-o", str(_SO), str(_SRC)]
-    subprocess.run(cmd, check=True, capture_output=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
+    os.close(fd)
+    try:
+        cmd = [cc, "-O3", "-shared", "-fPIC", "-o", tmp, str(_SRC)]
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _load():

@@ -2,7 +2,8 @@
 
 The reference slices CSC columns ``A[:, I]`` on the host
 (/root/reference/optimizer/loss.py:234-264). Variable-length column slicing
-is shape-dynamic and TPU-hostile, so the redesign materializes the sampled
+is shape-dynamic and hostile to compiled device code, so the redesign
+materializes the sampled
 columns as a **dense n x m panel B** in one shot:
 
 1. window-gather each sampled column's nnz from the stored transpose
@@ -11,7 +12,7 @@ columns as a **dense n x m panel B** in one shot:
 2. scatter-add the m*K window into B — index arrays are jit arguments, so
    this runs at memory speed (see package design rule 1).
 
-Everything downstream is then MXU-dense: partial gradient B^T r / n,
+Everything downstream is then dense matmuls: partial gradient B^T r / n,
 partial Hessian B^T diag(w) B / n, and the incremental margin update
 Ax += B @ s (the functional analogue of the reference's stateful
 ``update_mat_vec_product``, loss.py:279-281).

@@ -1,6 +1,6 @@
 """Lanczos tridiagonalization as a fixed-shape ``lax.scan``.
 
-TPU-native redesign of the reference's dynamic-length host loop
+Device-native redesign of the reference's dynamic-length host loop
 (/root/reference/optimizer/cubic.py:77-111):
 
 * static subspace dimension ``m`` with *breakdown masking* instead of array

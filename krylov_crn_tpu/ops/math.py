@@ -6,7 +6,7 @@ which use the same numerically-stable formulations and fuse into the
 surrounding XLA graphs.
 
 The second half of this module is the fp32 numerics layer that lets the
-TPU solver resolve 1e-9 suboptimality gaps (BASELINE.md convergence-parity
+fp32 device solver resolve 1e-9 suboptimality gaps (BASELINE.md convergence-parity
 row) without fp64 bulk arithmetic: sums and dot products are carried as
 **two-float pairs** (hi, lo) where hi = fl(sum) and lo holds the rounding
 residue (Knuth two-sum / Dekker two-product, error-free transformations).
@@ -60,7 +60,8 @@ def _split(a):
 
 def _two_prod(a, b):
     """Dekker two-product: p = fl(a*b) and the exact error e
-    (a * b == p + e). No FMA assumed — TPU VPU has none exposed."""
+    (a * b == p + e). No FMA assumed — XLA exposes none, and the
+    split form is exact whether or not the compiler contracts it."""
     p = a * b
     ah, al = _split(a)
     bh, bl = _split(b)
@@ -105,7 +106,7 @@ def sum2(x):
 
     hi is within one rounding of the true sum; float64(hi) + float64(lo)
     carries ~2x the working precision. Used for fp32 loss reductions on
-    TPU (SURVEY.md hard part (c))."""
+    the device (SURVEY.md hard part (c))."""
     return _lane_fold(x)
 
 

@@ -1,21 +1,19 @@
 """Sparse matrix products: SpMV, transpose SpMV, fused logistic HVP.
 
-TPU-first replacements for the reference's scipy CSR/CSC products
-(/root/reference/optimizer/loss.py:270,227,299-302). Formulation:
+Device replacements for the reference's scipy CSR/CSC products
+(the reference's optimizer/loss.py:270,227,299-302). Formulation:
 
     A @ x   = segment_sum(vals * x[cols], rows, n)        (gather + sorted seg-sum)
     A.T @ z = the same kernel on the explicitly-stored transpose
 
-Measured on the attached v5e (no SparseCore; driver-captured, BENCH_r02):
-fused HVP ~63 Mnnz/s — XLA executes arbitrary gathers/segment-sums on the
-scalar unit at ~0.14 G elem/s (PERF.md), so this path is structurally
-gather-bound on this chip and exists as the general/row-sharded fallback
-and as the correct target for SparseCore-bearing parts; the performant
-single-chip compute path is the dense Gram formulation (ops/gram.py).
+This path is gather/segment-sum-bound and exists as the general and
+row-sharded fallback; the fast single-device compute path is the dense
+Gram formulation (ops/gram.py). bench.py reports its fused-HVP rate on
+the GPU (PERF.md).
 All sparse arrays MUST arrive as function arguments (pytree leaves) — XLA
 constant-embedded index arrays compile pathologically (~800x slower).
 
-A dense MXU path is auto-selected when ``DualSparse.dense`` is present
+A dense matmul path is auto-selected when ``DualSparse.dense`` is present
 (small-d problems, mirroring the reference's dense/sparse switch at
 /root/reference/optimizer/cubic.py:47-58).
 """
@@ -39,7 +37,7 @@ def spmv_coo(m: SparseMatrix, x: jax.Array) -> jax.Array:
 
 
 def spmv(data, x: jax.Array) -> jax.Array:
-    """Ax. Dispatches: dense MXU path, sharded shard_map path, or COO."""
+    """Ax. Dispatches: dense matmul path, sharded shard_map path, or COO."""
     from krylov_crn_tpu.parallel.sharded import ShardedDual, sharded_spmv
 
     if isinstance(data, ShardedDual):

@@ -2,7 +2,7 @@
 
 Cartis–Gould–Toint secular-equation approach (the scheme the reference
 implements with scipy root_scalar + a linear solve per evaluation,
-/root/reference/optimizer/cubic.py:40-75). TPU-native redesign:
+the reference's optimizer/cubic.py:40-75). Device-native redesign:
 
 * **Eigendecompose once, solve many.** H (the m x m Lanczos tridiagonal, or
   a small dense Hessian) is factored H = Q diag(theta) Q^T a single time per
@@ -48,7 +48,7 @@ class CubicSolution(NamedTuple):
 def tridiag_eigh(alphas: jax.Array, betas: jax.Array):
     """Eigendecomposition of the symmetric tridiagonal T(alphas, betas).
 
-    m is tiny (10-1000): a dense eigh on the MXU/VPU is cheaper than bespoke
+    m is tiny (10-1000): a dense eigh on the device is cheaper than bespoke
     tridiagonal QR and gives eigenvectors (jax's eigh_tridiagonal cannot).
     """
     T = jnp.diag(alphas) + jnp.diag(betas, -1) + jnp.diag(betas, 1)

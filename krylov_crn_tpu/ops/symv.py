@@ -1,41 +1,46 @@
-"""Symmetric dense matvec (SYMV) — Pallas TPU kernel for the hot op.
+"""Symmetric dense matvec (SYMV) — a Pallas kernel on the Triton route.
 
-Every Gram-space iteration is (m + 2) K-matvecs with K = A A^T
-*symmetric* (ops/gram.py): the Lanczos hops, the incremental gradient
-image, and the margin rederivations all stream the full n x n K at
-~700 GB/s, which bounds the per-iteration cost (PERF.md). A generic
-XLA matvec must read all n^2 elements; a symmetric matvec only needs
-the upper triangle — each off-diagonal block K_ij (i < j) contributes
+Every Gram-space iteration is m + 1 K-matvecs with K = A A^T
+*symmetric* (ops/gram.py): the m Lanczos hops and the incremental
+gradient image (plus the margin re-derivation, when on) all stream the
+n x n K, which bounds the per-iteration cost. A generic matvec must
+read all n^2 elements; a symmetric matvec only needs the upper
+triangle — each
+off-diagonal tile K_ij (i < j) contributes
 
     y[i_blk] += K_ij @ x[j_blk]      (row combination)
     y[j_blk] += K_ij^T @ x[i_blk]    (column combination)
 
-so streaming n(n+1)/2 elements yields the full product: ~2x less HBM
-traffic on a bandwidth-bound op. XLA has no triangular-aware matvec
-lowering; this kernel supplies it.
+so streaming n(n+1)/2 elements yields the full product: about half the
+device-memory traffic on a bandwidth-bound op. XLA has no
+triangle-aware matvec; this kernel supplies it.
 
-Kernel structure (one TPU core, sequential grid):
+Kernel structure (GPU blocks run in parallel and in no order, so
+nothing is carried from one block to the next):
 
-* x (1, n) and a y accumulator (1, n) live wholly in VMEM (n <= ~45k
-  rows -> 180 KB each, far under the ~16 MB budget);
-* the grid walks the T = nb(nb+1)/2 upper-triangle blocks; the block
-  coordinates ride in as scalar-prefetch arrays so the K BlockSpec's
-  index_map can fetch exactly the (ib[t], jb[t]) tile — lower-triangle
-  tiles are never DMA'd (this is the entire bandwidth saving);
-* Pallas double-buffers the K tile DMA against the two (1,bs)@(bs,bs)
-  MXU products (~0.5 MFLOP vs ~1 MB of DMA per step: DMA-bound, so the
-  kernel runs at the HBM roofline of the *triangle*);
-* the accumulator initializes at grid step 0 and flushes to the output
-  on the last step (grid steps execute sequentially on TPU, so
-  read-modify-write accumulation is race-free).
+* one block per upper-triangle tile (i, j) of size ``tile x tile``. The
+  nb(nb+1)/2 tiles fold into an (nb/2) x (nb+1) rectangular grid: grid
+  row r holds tile-row r (nb - r tiles) followed by tile-row nb-1-r
+  (r + 1 tiles), so every block does the same work and no block is
+  empty. Each block computes its own (i, j) from its grid position;
+* inside the block a loop walks the tile in ``rows``-high strips. A
+  strip's row sums are complete (the strip spans the tile's columns)
+  and are stored at once; the column sums accumulate in registers over
+  the strips and are stored after the loop;
+* the two partial products land in a partial buffer P of shape
+  (nb, n): the row part of tile (i, j) at P[j, i_blk], the column part
+  at P[i, j_blk]. Each (slot, block) of P is written by exactly one
+  tile, so y = P.sum(0) needs no atomics and no zero-fill. P costs
+  (n / tile) * n * 4 B written and read once — about 2 * 2 / tile of
+  the triangle's bytes (1.6% at tile 256).
 
-Exactness: K is exactly symmetric by construction (P + P^T and
-B @ B^T accumulations are bitwise symmetric — commutativity of fp add /
-identical reduction orders), so reading only the upper triangle
-computes the same matrix product; per-element rounding differs from the
-XLA row-sweep only in summation order (same fp32 error class — the
-solver's incremental-pair numerics tolerate any fp32-grade matvec, see
-solvers/krylov_gram.py docstrings).
+Exactness: K is exactly symmetric by construction (the build rounds
+0.5 * (K + K^T), bitwise symmetric because fp add commutes, see
+ops/gram._round_K), so reading only the upper triangle computes the
+same matrix product; per-element rounding differs from XLA's matvec
+only in summation order (same fp32 error class). For a given K and x
+the result is bitwise reproducible: no atomics, and the launch does
+not depend on autotuning.
 """
 
 from __future__ import annotations
@@ -44,128 +49,97 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plt
 
-__all__ = ["symv", "symv_supported"]
+__all__ = ["TILE", "symv", "symv_bytes", "symv_supported"]
 
-try:  # Pallas TPU import is deferred-safe for CPU-only environments
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAVE_PALLAS = False
-
-
-@functools.lru_cache(maxsize=16)
-def _upper_blocks(nb: int):
-    """Block coordinates (ib, jb) of the nb(nb+1)/2 upper-triangle tiles,
-    diagonal-first row-major: (0,0),(0,1)..(0,nb-1),(1,1),..."""
-    ib, jb = np.triu_indices(nb)
-    return (np.ascontiguousarray(ib.astype(np.int32)),
-            np.ascontiguousarray(jb.astype(np.int32)))
+# Tile edge, strip height and launch parameters, chosen by measurement
+# on the card (PERF.md). The tile is a power of two; ops/gram.pad_rows
+# pads n to a multiple of 2 * TILE on the GPU so that the tile count nb
+# is even (the folded grid pairs tile-rows r and nb-1-r).
+TILE = 256
+ROWS = 32
+NUM_WARPS = 4
+NUM_STAGES = 3
 
 
-def _symv_kernel(ib_ref, jb_ref, x_ref, K_ref, out_ref, acc_ref):
-    t = pl.program_id(0)
-    nt = pl.num_programs(0)
+def tile_coords(r, c, nb):
+    """Upper-triangle tile (i, j) of folded grid position (r, c),
+    0 <= r < nb/2, 0 <= c <= nb. Works on Python ints and traced
+    scalars alike."""
+    first = c < nb - r
+    i = jnp.where(first, r, nb - 1 - r)
+    j = jnp.where(first, r + c, c - 1)
+    return i, j
 
-    @pl.when(t == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
 
-    i = ib_ref[t]
-    j = jb_ref[t]
-    bs = K_ref.shape[0]
-    Kb = K_ref[:]
-    xj = x_ref[:, pl.ds(pl.multiple_of(j * bs, bs), bs)]
-    # y_i[r] += sum_c K[r, c] * x[c]  — contraction over Kb's 2nd dim
-    yi = jax.lax.dot_general(xj, Kb, (((1,), (1,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-    di = pl.multiple_of(i * bs, bs)
-    acc_ref[:, pl.ds(di, bs)] += yi
+def _symv_kernel(K_ref, x_ref, p_ref, *, nb: int, tile: int, rows: int):
+    i, j = tile_coords(pl.program_id(0), pl.program_id(1), nb)
+    r0 = i * tile
+    c0 = j * tile
+    xj = x_ref[pl.ds(c0, tile)]
 
+    def strip(s, col_acc):
+        rs = r0 + s * rows
+        Ks = K_ref[pl.ds(rs, rows), pl.ds(c0, tile)]
+        # rows rs..rs+rows of y_i: sum_c K[r, c] x_j[c]
+        p_ref[j, pl.ds(rs, rows)] = jnp.sum(Ks * xj[None, :], axis=1)
+        xi = x_ref[pl.ds(rs, rows)]
+        # y_j[c] += sum_r K[r, c] x_i[r]
+        return col_acc + jnp.sum(Ks * xi[:, None], axis=0)
+
+    col = jax.lax.fori_loop(0, tile // rows, strip,
+                            jnp.zeros((tile,), jnp.float32))
+
+    # a diagonal tile's row part already covers the whole tile
     @pl.when(i != j)
     def _():
-        xi = x_ref[:, pl.ds(pl.multiple_of(i * bs, bs), bs)]
-        # y_j[c] += sum_r x[r] * K[r, c] — contraction over Kb's 1st dim
-        yj = jax.lax.dot_general(xi, Kb, (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-        acc_ref[:, pl.ds(pl.multiple_of(j * bs, bs), bs)] += yj
-
-    @pl.when(t == nt - 1)
-    def _():
-        out_ref[:] = acc_ref[:]
+        p_ref[i, pl.ds(c0, tile)] = col
 
 
-def symv_supported(n: int, dtype) -> bool:
+def symv_bytes(n: int, tile: int = TILE) -> int:
+    """Bytes one call streams: the upper-triangle tiles of K and the
+    partial buffer, written and read once (the reads of x are a few
+    n-vectors per tile row and are not counted)."""
+    nb = n // tile
+    return 4 * (n * (n + tile) // 2 + 2 * nb * n)
+
+
+def symv_supported(n: int, dtype, tile: int = TILE) -> bool:
     """Static predicate: the kernel handles square fp32 K with n a
-    multiple of a supported block size, on a TPU backend."""
-    return (_HAVE_PALLAS
-            and jnp.dtype(dtype) == jnp.float32
-            and _pick_block(n) > 0
-            and jax.default_backend() == "tpu")
+    multiple of 2 * tile, on a GPU backend."""
+    return (jnp.dtype(dtype) == jnp.float32
+            and n % (2 * tile) == 0
+            and jax.default_backend() == "gpu")
 
 
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
-def _symv_call(K, x2, ib, jb, block: int, interpret: bool = False):
-    n = K.shape[0]
-    nb = n // block
-    T = nb * (nb + 1) // 2
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # x, fully resident
-            pl.BlockSpec(
-                (block, block),
-                index_map=lambda t, ib, jb: (ib[t], jb[t]),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec((1, n), lambda t, ib, jb: (0, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[pltpu.VMEM((1, n), jnp.float32)],
-    )
-    return pl.pallas_call(
-        _symv_kernel,
-        out_shape=jax.ShapeDtypeStruct((1, n), jnp.float32),
-        grid_spec=grid_spec,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * n * n,
-            bytes_accessed=4 * n * (n + 2) // 2,
-            transcendentals=0,
-        ),
-        interpret=interpret,  # CPU test path (tests/test_symv.py)
-    )(ib, jb, x2, K)
-
-
-def _pick_block(n: int) -> int:
-    """Dividing block size by measured preference (n=20480, 4-rep
-    medians, tools/measure_symv.py): 640 -> 1.46 ms, 512 -> 1.54-1.63,
-    1024/2048 -> VMEM OOM (Pallas double-buffers the K tile; >=4 MB
-    tiles exceed the ~16 MB budget inside the multistep program). 256 is
-    a last resort for odd paddings (per-step overhead grows at T ~ n^2 /
-    256^2 steps); ops/gram.pad_rows aligns n_pad to 2560 on TPU so the
-    preferred sizes always divide."""
-    for b in (640, 512, 256):
-        if n % b == 0:
-            return b
-    return 0
-
-
-def symv(K, q, block: int | None = None, interpret: bool = False):
+@functools.partial(jax.jit, static_argnames=("tile", "rows", "interpret"))
+def symv(K, q, tile: int = TILE, rows: int = ROWS, interpret: bool = False):
     """y = K @ q for symmetric fp32 K, streaming only the upper triangle.
 
-    Traceable (usable inside jit). The caller is responsible for gating
-    via symv_supported — this function assumes a supported shape.
-    ``interpret`` runs the kernel in the Pallas interpreter (CPU test
-    coverage of the triangular index logic)."""
+    Traceable (usable inside jit). The caller gates on symv_supported;
+    this function asserts the shape. ``tile``/``rows`` other than the
+    defaults and ``interpret`` (the Pallas interpreter) serve the CPU
+    tests of the tile folding and the partial-buffer layout; the launch
+    parameters are the module constants NUM_WARPS/NUM_STAGES."""
     n = K.shape[0]
-    if block is None:
-        block = _pick_block(n)
-    nb = n // block
-    ib, jb = _upper_blocks(nb)
-    y = _symv_call(K, q.reshape(1, n), jnp.asarray(ib), jnp.asarray(jb),
-                   block=block, interpret=interpret)
-    return y.reshape(n)
+    assert K.shape == (n, n) and K.dtype == jnp.float32
+    assert n % (2 * tile) == 0 and tile % rows == 0
+    nb = n // tile
+    P = pl.pallas_call(
+        functools.partial(_symv_kernel, nb=nb, tile=tile, rows=rows),
+        out_shape=jax.ShapeDtypeStruct((nb, n), jnp.float32),
+        grid=(nb // 2, nb + 1),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=NUM_STAGES),
+        cost_estimate=pl.CostEstimate(
+            flops=2 * n * n,
+            bytes_accessed=symv_bytes(n, tile),
+            transcendentals=0,
+        ),
+        interpret=interpret,
+        name="symv_upper",
+    )(K, q.astype(jnp.float32))
+    return P.sum(axis=0)

@@ -1,11 +1,11 @@
 """Multi-host execution: distributed init + per-host data loading.
 
 The reference is a single process end to end (SURVEY.md §2.2) — this layer
-is net-new for the TPU build. Responsibilities:
+is net-new here. Responsibilities:
 
-* ``init_distributed`` — ``jax.distributed.initialize`` wiring (ICI within
-  a slice, DCN across; XLA handles the transport once processes rendezvous
-  at the coordinator);
+* ``init_distributed`` — ``jax.distributed.initialize`` wiring (NVLink
+  within a host, the network across hosts; XLA hands the transport to
+  NCCL once processes rendezvous at the coordinator);
 * ``split_bytes_by_rows`` / ``load_libsvm_rows`` — each host reads and
   parses ONLY its byte range of the LIBSVM text file (byte count is a
   faithful nnz proxy, so contiguous byte-balanced splits are nnz-balanced
@@ -38,9 +38,10 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> int:
     """Initialize multi-host JAX. Returns the process id.
 
-    With no arguments, relies on the cluster environment (TPU pods publish
-    coordinator/process metadata automatically). A no-op when JAX is
-    already initialized or when running single-process.
+    A multi-process run passes all three arguments (coordinator as
+    ``host:port``): nothing on a GPU host tells JAX of a cluster by
+    itself. A no-op when JAX is already initialized or when running
+    single-process.
     """
     import jax
 

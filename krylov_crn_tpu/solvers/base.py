@@ -6,7 +6,7 @@ convergence, trace subsampling that always keeps the first
 ``save_first_iterations`` checkpoints then thins by progress fraction
 (optimizer.py:136-145), and post-run loss evaluation.
 
-TPU-native difference: ``step()`` dispatches a single jitted device program
+Device-native difference: ``step()`` dispatches a single jitted device program
 over a solver-state pytree (no host round-trips inside a step; line search,
 secular Newton and Lanczos are lax loops inside it). The host loop only
 reads back scalars for convergence/trace bookkeeping. The iterate-diff
@@ -71,23 +71,18 @@ class Optimizer:
                 self.initialized = True
 
             it_criterion = self.it_max is not np.inf
-            pbar = None
-            if self.tqdm:
-                from tqdm import tqdm as _tqdm
-
-                pbar = _tqdm(total=self.it_max if it_criterion else self.t_max)
-            tqdm_val = 0
-            try:
-                while not self.check_convergence():
-                    self.step()
-                    self.save_checkpoint()
-                    if pbar is not None:
-                        new_val = self.it if it_criterion else self.t
-                        pbar.update(new_val - tqdm_val)
-                        tqdm_val = new_val
-            finally:
-                if pbar is not None:
-                    pbar.close()
+            total = self.it_max if it_criterion else self.t_max
+            shown = 0  # tenths of the budget already reported
+            while not self.check_convergence():
+                self.step()
+                self.save_checkpoint()
+                if self.tqdm:
+                    done = self.it if it_criterion else self.t
+                    tenth = int(10 * done / total)
+                    if tenth > shown:
+                        shown = tenth
+                        print(f"{self.label}: it {self.it}, "
+                              f"{self.t:.1f} s ({10 * tenth}%)", flush=True)
             self.finished_seeds.append(seed)
             self.initialized = False
             # fold the device-tracked running-best value into the oracle's
@@ -104,8 +99,8 @@ class Optimizer:
     def warm(self, x0, seed=42):
         """Execute one throwaway step so the step program's one-time
         costs (XLA compile, persistent-cache deserialization, per-process
-        executable load — seconds to minutes through a relayed transport)
-        land OUTSIDE a subsequent timed ``run``. Without this, a
+        executable load — seconds to minutes) land OUTSIDE a subsequent
+        timed ``run``. Without this, a
         time-budgeted run can burn its entire ``t_max`` inside the first
         step's compile and stop after one iteration (observed: the w8a
         dense-CRN Figure-2 leg terminating at it=1 with a 240 s budget).

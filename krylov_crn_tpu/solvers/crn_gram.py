@@ -9,10 +9,10 @@ Dispatch granularity is deliberately ONE CG SOLVE per device program: the
 secular Newton and the backtracking line search run on the host, exactly
 like the reference's ``root_scalar``-over-CG structure (cubic.py:157-182).
 A fully fused step (line search x Newton x CG in one XLA program) was the
-round-1 design, but a single dispatch can then run minutes of device time
-on ill-conditioned problems, which wedges shared-TPU runtimes and gives
-zero progress visibility. The host overhead is O(ms) per CG solve against
-O(100ms..s) of device time per solve — noise.
+first design, but a single dispatch can then run minutes of device time
+on ill-conditioned problems with zero progress visibility. The host
+overhead is O(ms) per CG solve against O(100ms..s) of device time per
+solve — noise.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Krylov Cubic Regularized Newton — the paper's method, TPU-native.
+"""Krylov Cubic Regularized Newton — the paper's method, device-native.
 
 Redesign of /root/reference/optimizer/cubic.py:238-319. One optimizer step
 is a single jitted XLA program:

@@ -6,8 +6,8 @@ jitted program:
     sample m coordinates without replacement (jax PRNG in solver state)
     materialize the sampled columns as a dense n x m panel B (window
         gathers from the stored transpose — see ops/coords.py)
-    partial gradient  B^T (sigma(Ax)-b)/n           (MXU GEMV)
-    partial Hessian   B^T diag(w) B / n             (MXU GEMM)
+    partial gradient  B^T (sigma(Ax)-b)/n           (dense GEMV)
+    partial Hessian   B^T diag(w) B / n             (dense GEMM)
     eigendecompose the m x m Hessian once; line-search trials re-solve
         only the O(m) secular equation
     scatter-update x[I] += s and incrementally refresh the margins

@@ -1,7 +1,7 @@
 """Run records: checkpoint log, metric series, gap curves, persistence.
 
 Fills the role of the reference Trace (/root/reference/optimizer/
-opt_trace.py:19-120) with a different organization built for the TPU
+opt_trace.py:19-120) with a different organization built for the device
 runtime:
 
 * checkpoints (``xs``) may be explicit iterates *or* compact solver pytrees

@@ -1,6 +1,6 @@
 #!/bin/bash
 # Figure-2 reproduction grid (the reference's cubic_newton.sh:1-8) on the
-# TPU framework. With no network egress, synthetic stand-ins shaped like
+# GPU framework. With no network egress, synthetic stand-ins shaped like
 # the LIBSVM datasets are substituted automatically; drop --synthetic and
 # place the real files next to this script to reproduce the paper exactly.
 set -e

@@ -4,7 +4,7 @@ setup(
     name="krylov-crn-tpu",
     version="0.1.0",
     description=(
-        "TPU-native sparse second-order optimization framework: "
+        "Sparse second-order optimization framework for the GPU: "
         "Krylov cubic-regularized Newton methods in JAX/XLA/Pallas"
     ),
     packages=find_packages(include=["krylov_crn_tpu*"]),

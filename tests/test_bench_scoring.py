@@ -45,7 +45,8 @@ def stub(monkeypatch):
 
 
 def _ours_attempt(build_s, ts, fs, f_best):
-    return (build_s, ts, fs, f_best)
+    its = list(range(1, len(ts) + 1))
+    return (build_s, its, ts, fs, f_best)
 
 
 def test_min_over_crossing_attempts_and_consistent_best(stub):

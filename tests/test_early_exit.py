@@ -1,4 +1,4 @@
-"""Gradient-norm early-exit branch of the CRN steps (VERDICT item 10).
+"""Gradient-norm early-exit branch of the CRN steps.
 
 The reference returns from ``step`` without moving when ||g|| < tolerance
 (/root/reference/optimizer/cubic.py:201-202), so its run loop terminates

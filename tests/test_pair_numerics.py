@@ -1,10 +1,10 @@
 """Compensated (two-float) fp32 numerics vs fp64 ground truth.
 
-BASELINE.md's convergence-parity row requires the fp32-on-TPU solver to
+BASELINE.md's convergence-parity row requires the fp32 device solver to
 resolve the reference's 1e-8/1e-9 suboptimality gaps. Plain fp32 sums of
 ~20k O(1) loss terms carry ~1e-4..1e-6 absolute error — these tests prove
 the two-float pipeline (ops/math.py) recovers the missing precision and
-that the pure-fp32 Gram solver (accum_dtype=float32, exactly the TPU
+that the pure-fp32 Gram solver (accum_dtype=float32, exactly the GPU
 configuration with x64 off) tracks the fp64 run's optimum to <1e-8.
 """
 
@@ -115,7 +115,7 @@ def test_gram_value_pair_fp32_tracks_fp64(small_problem):
 
 
 def test_fp32_pair_solver_matches_fp64_optimum(small_problem):
-    """Pure-fp32 Gram Krylov-CRN (accum_dtype=float32 — the exact TPU
+    """Pure-fp32 Gram Krylov-CRN (accum_dtype=float32 — the exact GPU
     configuration) must reach the fp64 run's optimum to <1e-8."""
     from krylov_crn_tpu.models.logistic import LogisticRegression
     from krylov_crn_tpu.solvers.krylov_gram import (
@@ -143,7 +143,7 @@ def test_fp32_pair_solver_matches_fp64_optimum(small_problem):
     st32 = alg32.init_state(jnp.asarray(x0, jnp.float32), 42)
     # under x64 init_state accumulates in fp64; split-cast the scalars to
     # fp32 pairs (hi = fl32(v), lo = fl32(v - hi)) — exactly the state a
-    # real x64-off TPU run starts from
+    # real x64-off GPU run starts from
     def pair32(hi, lo):
         v = float(hi) + float(lo)
         h = np.float32(v)
@@ -172,7 +172,7 @@ def test_fp32_pair_solver_matches_fp64_optimum(small_problem):
 
     # THE claim (BASELINE.md convergence-parity row): the PRODUCTION fp32
     # path — run_fused with exact fp64 boundary corrections, the exact
-    # TPU configuration — reaches the fp64 optimum below the reference's
+    # GPU configuration — reaches the fp64 optimum below the reference's
     # 1e-8 gap target (exact host-verified values, not device readouts)
     loss32b = LogisticRegression(A, b, dtype=np.float32)
     alg32b = GramKrylov(loss=loss32b, reg_coef=1e-3, subspace_dim=10,
@@ -220,7 +220,7 @@ def test_fp32_production_path_at_scale_fast_tail():
     """n~4k topic problem with an interior optimum (the benchmark
     datasets' class): the production fp32 path must reach the fp64 run's
     value below the 1e-8 gap target. Round 2's 400-row-only coverage
-    hid n-scaled noise floors (VERDICT r2)."""
+    hid n-scaled noise floors."""
     A, b, x0 = _scale_problem(own_frac=0.45)
     f64, t32 = _run_pair(A, b, x0, it_max=64)
     f32 = min(t32.metrics["exact_fs"])  # exact fp64 host-verified

@@ -229,8 +229,8 @@ def test_sscn_sharded_matches_single(mesh):
 def test_one_psum_per_hvp(sparse_problem, mesh):
     """Design invariant (SURVEY.md §2.2): a sharded fused HVP compiles to
     exactly ONE all-reduce — the psum of the d-vector after the local
-    transpose-SpMV. Regression guard for the collective-traffic story in
-    artifacts/scaling/collectives.json."""
+    transpose-SpMV. Regression guard for the sharded HVP's collective
+    traffic (tools/scaling_evidence.py counts it at the bench shape)."""
     import re
 
     import jax
@@ -257,13 +257,12 @@ def test_gram_step_collective_budget(mesh):
     f32[ls_max+1]): an all-reduce of an n-sized vector would mean a
     lost-sharding regression that re-reduces bulk data.
 
-    Scope note (advisor round-4): the collective COUNT is NOT
-    shape-independent — GSPMD partitions the bench shape (n_pad=20480)
-    differently and emits 31 all-gathers there
-    (artifacts/scaling/collectives.json). The bench-shape accounting
-    lives in tools/scaling_evidence.py, which lowers abstractly at the
-    real shape; this unit test guards the toy-shape lowering only (a
-    bench-shape compile on the CPU fake mesh is too slow for the suite).
+    Scope note: the collective COUNT is NOT shape-independent — GSPMD
+    may partition the bench shape (n_pad=20480) differently. The
+    bench-shape accounting lives in tools/scaling_evidence.py, which
+    lowers abstractly at the real shape; this unit test guards the
+    toy-shape lowering only (a bench-shape compile on the CPU fake mesh
+    is too slow for the suite).
     The bulk-vector all-reduce assertion below IS shape-independent in
     intent: lost-sharding regressions re-reduce n-sized data at any n."""
     import re

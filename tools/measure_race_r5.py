@@ -4,8 +4,8 @@ levers:
 
   --warm-build   warm the fused-build executables pre-t0 with
                  device-created zeros (ops.gram.warm_build_gram_fused) —
-                 excludes the ~0.4 s/program per-process executable load
-                 from the timed build, the same treatment warm_fused
+                 excludes the per-program executable load from the
+                 timed build, the same treatment warm_fused
                  already gives the race programs;
   --chunk N      iterations per multistep dispatch. chunk=32 needs a
                  SECOND dispatch to certify the measured it~33 crossing

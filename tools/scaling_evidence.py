@@ -1,13 +1,13 @@
-"""Scaling evidence without multi-chip hardware (BASELINE.md:29).
+"""Collective accounting of the row-sharded solver steps (BASELINE.md:29).
 
 Counts the collective operations and bytes per solver step from the
 *compiled* programs on an 8-virtual-device CPU mesh (GSPMD inserts the
-same collectives it would on a pod — the fake mesh is the standard JAX
-idiom for this), measures per-device local HBM traffic analytically from
-the array shapes, and projects multi-host scaling efficiency from the
-single-chip rates captured in BENCH_r0*.json.
+same collectives it would on a GPU mesh — the fake mesh is the standard
+JAX idiom for this) and the per-device local K bytes per matvec from the
+array shapes. Times come only from the cards: chip_smoke.py --four-gpu
+runs the row-sharded race on four GPUs.
 
-Run:  python tools/scaling_evidence.py         (writes artifacts/scaling/)
+Run:  python tools/scaling_evidence.py         (prints one JSON object)
 The pytest twin of the psum-count assertion lives in
 tests/test_parallel.py::test_one_psum_per_hvp.
 """
@@ -161,8 +161,7 @@ def runtime_collectives(hlo: str, m: int):
     in called-once computations (fusions, conditional branches) count
     once. If collectives appear under MORE than one distinct while, or
     under nested whiles, trip-count attribution is ambiguous and this
-    raises instead of publishing a silently wrong budget (the docstring
-    of record for artifacts/scaling/collectives.json)."""
+    raises instead of publishing a silently wrong budget."""
     comps = _parse_computations(hlo)
     entry = next((n for n in comps if n.startswith("main")), None)
     assert entry is not None, "no main computation found in HLO"
@@ -249,8 +248,8 @@ def gram_path(n_pad=20480, m=10):
     replicated (gram_krylov_step's ``repl``), so the Lanczos and
     line-search reductions lower collective-free on replicated operands
     instead of emitting an extra fold all-gather per compensated dot
-    (round-4: 31 AG + 7 AR per iteration; the DCN projection was
-    latency-bound at 64%). The remaining collectives are the structural
+    (round-4: 31 AG + 7 AR per iteration). The remaining collectives are
+    the structural
     (m+2) n-vector all-gathers of the sequential matvec chain.
 
     Counting is loop-aware (see runtime_collectives): the round-4
@@ -307,61 +306,11 @@ def gram_path(n_pad=20480, m=10):
     }
 
 
-def projection(coo, gram):
-    """Analytic 2-host scaling projection from measured single-chip rates
-    and the FULL per-iteration collective footprint of the bench-shape
-    HLO (round-3 verdict: the earlier projection modeled only the
-    all-gather of one matvec and dropped the 52 collective-permutes and
-    the all-reduce).
-
-    Rates: dense K-matvec 702 GB/s HBM (PERF.md measured); ICI ~45 GB/s
-    per direction (v5e), DCN ~25 GB/s per host (public TPU v5e specs).
-    Efficiency = T_local / (T_local + T_collective) per full solver
-    iteration. First-order model: each collective costs
-    payload_bytes / link_bw + a 20 us latency floor; payloads are the
-    logical HLO shapes (a ring all-gather moves (D-1)/D of that per
-    link — the model is conservative by the missing 1/D).
-    """
-    n = 20480  # rcv1/news20-shaped rows (bench shape)
-    hbm = 702e9
-    m_plus2 = gram["matvecs_per_iteration"]
-    stc = gram["collectives"]
-    total_count = sum(v["count"] for v in stc.values())
-    total_bytes = sum(v["bytes"] for v in stc.values())
-    # COO fused-HVP path — the BASELINE.md:29 ">=70% nnz/s at 2+ hosts"
-    # metric applies to THIS path: one d-vector psum per HVP against the
-    # measured 62 Mnnz/s/chip gather-bound compute (PERF.md stress-1m).
-    nnz_per_chip = 125e6  # stress-10m, 1B nnz / 8 chips
-    t_hvp = nnz_per_chip / 61.6e6  # measured per-chip fused HVP rate
-    for D, link_bw, lat, link in ((8, 45e9, 2e-6, "ici"),
-                                  (16, 25e9, 20e-6, "dcn-2hosts")):
-        t_local = m_plus2 * (n * n * 4 / D) / hbm
-        t_coll = total_bytes / link_bw + total_count * lat
-        eff = t_local / (t_local + t_coll)
-        d_bytes = 10_000_000 * 4  # stress-10m d-vector
-        coo_eff = t_hvp / (t_hvp + d_bytes / link_bw + lat)
-        yield {
-            "devices": D,
-            "link": link,
-            "link_latency_us": lat * 1e6,
-            "t_local_iter_us": round(t_local * 1e6, 1),
-            "t_collective_iter_us": round(t_coll * 1e6, 1),
-            "collective_count_per_iter": total_count,
-            "collective_bytes_per_iter": total_bytes,
-            "gram_iteration_efficiency": round(eff, 3),
-            "coo_hvp_efficiency_stress10m": round(coo_eff, 3),
-        }
-
-
 def main():
     out = {
         "coo": coo_path(),
         "gram": gram_path(),
     }
-    out["projection"] = list(projection(out["coo"], out["gram"]))
-    os.makedirs("artifacts/scaling", exist_ok=True)
-    with open("artifacts/scaling/collectives.json", "w") as fh:
-        json.dump(out, fh, indent=2)
     print(json.dumps(out, indent=2))
 
 
